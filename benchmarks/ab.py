@@ -1,10 +1,10 @@
 """In-process A/B harness for the SoA step's backend knobs.
 
-One TPU claim, one world build; each arm monkeypatches the module
-knobs and compiles a FRESH jitted callable (the engine-method jit
-caches key on the engine instance, so arms must not reuse them).
+One process, one world build; each arm monkeypatches the module knobs
+and compiles a FRESH jitted callable (the engine-method jit caches key
+on the engine instance, so arms must not reuse them).
 
-  python benchmarks/ab.py [--arms lookup7,lookup4,selfcol_pallas,...]
+  python benchmarks/ab.py [--arms base,selfcol_pairs,abl_lookup,...]
 """
 
 from __future__ import annotations
@@ -20,7 +20,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--arms", default="base,L128,L256")
+    ap.add_argument("--arms", default="base,selfcol_pairs,selfcol_sym")
     ap.add_argument("--config", type=int, default=1,
                     help="benchmark config to A/B on (1, 2, or 4)")
     ap.add_argument("--batch", type=int, default=256)
@@ -33,11 +33,10 @@ def main():
     import numpy as np
 
     from benchmarks import configs as C
-    from or_cdchomp_tpu.chomp import constraints as cons_mod
-    from or_cdchomp_tpu.chomp import cost_soa
-    from or_cdchomp_tpu.chomp import solver as solver_mod
-    from or_cdchomp_tpu.ops import grid
-    from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
+    from or_cdchomp_jax.chomp import constraints as cons_mod
+    from or_cdchomp_jax.chomp import cost_soa
+    from or_cdchomp_jax.chomp import solver as solver_mod
+    from or_cdchomp_jax.parallel.batch import problem_batch_from_grid
 
     builder = {1: C.wam7_single_sdf, 2: C.cluttered_multi_sdf,
                4: C.floating_everyn_tsr}[args.config]
@@ -56,30 +55,12 @@ def main():
 
     ARMS = {
         "base": {},
-        "lookup7": {"lookup": "7"},
-        "lookup4b": {"lookup": "4b"},
-        "L32": {"L": 32},
-        "L64": {"L": 64},
-        "L96": {"L": 96},
         "iter_u2": {"iter_unroll": 2},
         "iter_u4": {"iter_unroll": 4},
-        "L128": {"L": 128},
-        "L256": {"L": 256},
-        "selfcol_pallas": {"selfcol": "pallas"},
         "selfcol_pairs": {"selfcol": "pairs"},
-        "selfcol_pairs_oh": {"selfcol": "pairs_oh"},
         "selfcol_sym": {"selfcol": "sym"},
         "selfcol_symv": {"selfcol": "symv"},
         "selfcol_xla2": {"selfcol": "xla2"},
-        "spd_8_128": {"selfcol": "pallas_dense", "tm": 8, "tb": 128},
-        "spd_8_256": {"selfcol": "pallas_dense", "tm": 8, "tb": 256},
-        "spd_16_128": {"selfcol": "pallas_dense", "tm": 16, "tb": 128},
-        "spd_16_256": {"selfcol": "pallas_dense", "tm": 16, "tb": 256},
-        "spd_4_128": {"selfcol": "pallas_dense", "tm": 4, "tb": 128},
-        "sp_8_128": {"selfcol": "pallas", "tm": 8, "tb": 128},
-        "sp_8_256": {"selfcol": "pallas", "tm": 8, "tb": 256},
-        "sp_16_256": {"selfcol": "pallas", "tm": 16, "tb": 256},
-        "sp_32_256": {"selfcol": "pallas", "tm": 32, "tb": 256},
         "abl_selfcol": {"ablate": {"selfcol"}},
         "abl_obstacle": {"ablate": {"obstacle"}},
         "abl_lookup": {"ablate": {"lookup"}},
@@ -93,34 +74,17 @@ def main():
         "sss_u4": {"sss_unroll": 4},
         "sss_u7": {"sss_unroll": 7},
         "sss_u49": {"sss_unroll": 49},
-        "stack0": {"stack": False},
-        "bf16": {"bf16": True},
-        "bf16_L128": {"bf16": True, "L": 128},
-        "bf16_L256": {"bf16": True, "L": 256},
     }
 
-    base = dict(lookup=cost_soa._SOA_LOOKUP, selfcol=cost_soa._SELFCOL,
-                L=grid._ONEHOT2_L4, ablate=cost_soa._ABLATE)
-
-    from or_cdchomp_tpu.ops import pallas_selfcol
-
-    base["tm"], base["tb"] = pallas_selfcol._TM, pallas_selfcol._TB
-    base["stack"] = grid._LOOKUP4_STACK
-    base["bf16"] = grid._LOOKUP4_BF16
+    base = dict(selfcol=cost_soa._SELFCOL, ablate=cost_soa._ABLATE)
     base["sss_unroll"] = cons_mod._SSS_UNROLL
     base["tsr_eval"] = solver_mod._TSR_EVAL
     base["iter_unroll"] = solver_mod._ITER_UNROLL
     try:
         for arm in args.arms.split(","):
             cfg = ARMS[arm]
-            cost_soa._SOA_LOOKUP = cfg.get("lookup", base["lookup"])
             cost_soa._SELFCOL = cfg.get("selfcol", base["selfcol"])
-            grid._ONEHOT2_L4 = cfg.get("L", base["L"])
             cost_soa._ABLATE = cfg.get("ablate", base["ablate"])
-            pallas_selfcol._TM = cfg.get("tm", base["tm"])
-            pallas_selfcol._TB = cfg.get("tb", base["tb"])
-            grid._LOOKUP4_STACK = cfg.get("stack", base["stack"])
-            grid._LOOKUP4_BF16 = cfg.get("bf16", base["bf16"])
             cons_mod._SSS_UNROLL = cfg.get("sss_unroll",
                                            base["sss_unroll"])
             solver_mod._TSR_EVAL = cfg.get("tsr_eval", base["tsr_eval"])
@@ -148,14 +112,8 @@ def main():
     finally:
         # restore every patched knob so programmatic callers see a
         # consistent module state even if the sweep raises
-        cost_soa._SOA_LOOKUP = base["lookup"]
         cost_soa._SELFCOL = base["selfcol"]
-        grid._ONEHOT2_L4 = base["L"]
         cost_soa._ABLATE = base["ablate"]
-        pallas_selfcol._TM = base["tm"]
-        pallas_selfcol._TB = base["tb"]
-        grid._LOOKUP4_STACK = base["stack"]
-        grid._LOOKUP4_BF16 = base["bf16"]
         cons_mod._SSS_UNROLL = base["sss_unroll"]
         solver_mod._TSR_EVAL = base["tsr_eval"]
         solver_mod._ITER_UNROLL = base["iter_unroll"]

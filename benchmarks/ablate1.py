@@ -24,7 +24,7 @@ import numpy as np
 
 
 def measure(engine, run, batch=256, n_iter=100, reps=2):
-    from or_cdchomp_tpu.parallel.batch import (
+    from or_cdchomp_jax.parallel.batch import (
         BatchSolver, problem_batch_from_grid)
 
     spec = engine.spec
@@ -59,9 +59,9 @@ def patched(mod, name, repl):
 
 def main():
     from benchmarks import configs as C
-    import or_cdchomp_tpu.chomp.cost as cost_mod
-    from or_cdchomp_tpu.chomp.solver import ChompEngine
-    from or_cdchomp_tpu.chomp.constraints import TSRConstraintSet
+    import or_cdchomp_jax.chomp.cost as cost_mod
+    from or_cdchomp_jax.chomp.solver import ChompEngine
+    from or_cdchomp_jax.chomp.constraints import TSRConstraintSet
 
     dtype = jnp.float32
     mod, run, goal = C.wam7_single_sdf(dtype)
@@ -121,7 +121,7 @@ def main():
         results["no_selfcol"], _ = measure(fresh(), run)
 
     # --- no_jtmap: G = slice of w
-    import or_cdchomp_tpu.models.robot as robot_mod
+    import or_cdchomp_jax.models.robot as robot_mod
     orig_jt = robot_mod.CompiledFK.apply_sphere_jacT
     try:
         robot_mod.CompiledFK.apply_sphere_jacT = \

@@ -19,7 +19,7 @@ import numpy as np
 
 
 def measure(engine, run, batch=256, n_iter=100, reps=2):
-    from or_cdchomp_tpu.parallel.batch import (
+    from or_cdchomp_jax.parallel.batch import (
         BatchSolver, problem_batch_from_grid)
 
     spec = engine.spec
@@ -46,9 +46,9 @@ def measure(engine, run, batch=256, n_iter=100, reps=2):
 
 def main():
     from benchmarks import configs as C
-    from or_cdchomp_tpu.chomp import constraints as cons_mod
-    from or_cdchomp_tpu.chomp.constraints import TSRConstraintSet
-    from or_cdchomp_tpu.chomp.solver import ChompEngine
+    from or_cdchomp_jax.chomp import constraints as cons_mod
+    from or_cdchomp_jax.chomp.constraints import TSRConstraintSet
+    from or_cdchomp_jax.chomp.solver import ChompEngine
 
     dtype = jnp.float32
     mod, run, goal = C.floating_everyn_tsr(dtype)
@@ -83,7 +83,7 @@ def main():
             C_ = cons.n_constraints
             n = spec.n
             return (jnp.zeros((C_, 6), dtype), jnp.zeros((C_, 6, n), dtype))
-        import or_cdchomp_tpu.chomp.solver as sol_mod
+        import or_cdchomp_jax.chomp.solver as sol_mod
         orig_eval = sol_mod.eval_tsr_all
         sol_mod.eval_tsr_all = no_eval
         e4 = fresh(eng.cons)
@@ -92,7 +92,7 @@ def main():
         sol_mod.eval_tsr_all = orig_eval
 
     try:
-        import or_cdchomp_tpu.chomp.solver as sol_mod
+        import or_cdchomp_jax.chomp.solver as sol_mod
         orig_p = sol_mod.project_constraints
         sol_mod.project_constraints = \
             lambda spec, cons, e, lam, AG, T, val, jac: jnp.zeros_like(T)

@@ -15,9 +15,9 @@ from __future__ import annotations
 
 import numpy as np
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.tsr import TSR
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.tsr import TSR
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
 # goal used by every config: both endpoints verified clear of each
@@ -56,8 +56,7 @@ def wam7_single_sdf(dtype, n_points=101):
     robot = Robot("wam", oc.wam7(), q_active=START.copy())
     mod.add_robot(robot)
     robot.enabled = False
-    mod.computedistancefield(kinbody="table", cube_extent=0.04,
-                             cache_filename="/tmp/bench_sdf_table.npy")
+    mod.computedistancefield(kinbody="table", cube_extent=0.04)
     robot.enabled = True
     h = mod.create(robot="wam", adofgoal=GOAL1, lambda_=100.0,
                    obs_factor=500.0, n_points=n_points)
@@ -80,8 +79,7 @@ def cluttered_multi_sdf(dtype, n_points=101):
     robot = _wam(mod)
     robot.enabled = False
     for name in ("table", "shelf", "mugs"):
-        mod.computedistancefield(kinbody=name, cube_extent=0.05,
-                                 cache_filename=f"/tmp/bench_sdf_{name}.npy")
+        mod.computedistancefield(kinbody=name, cube_extent=0.05)
     robot.enabled = True
     h = mod.create(robot="wam", adofgoal=GOAL1, lambda_=100.0,
                    obs_factor=500.0, obs_factor_self=10.0,
@@ -116,8 +114,7 @@ def floating_everyn_tsr(dtype, n_points=51):
     robot = Robot("wam", oc.wam7(), q_active=START.copy())
     mod.add_robot(robot)
     robot.enabled = False
-    mod.computedistancefield(kinbody="table", cube_extent=0.08,
-                             cache_filename="/tmp/bench_sdf_float.npy")
+    mod.computedistancefield(kinbody="table", cube_extent=0.08)
     robot.enabled = True
     tsr = TSR.from_matrices(
         np.eye(4), np.eye(4),

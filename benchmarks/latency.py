@@ -7,7 +7,7 @@ the available paths and prints one JSON line per path:
 
 Paths:
   aos     — per-problem engine.iterate (the api path)
-  soa1    — batch-native SoA step at B=1 (B rides the lane axis)
+  soa1    — batch-native SoA step at B=1 (B is the minor axis)
   chunk   — api-style masked ITER_CHUNK driver (what mod.iterate uses)
 """
 

@@ -7,9 +7,7 @@ Prints one JSON line per config:
 Usage:  python benchmarks/run.py [--configs 1,2,3,4,5] [--batch 256]
         [--n-iter 100] [--f64]
 
-Config 5 (pod sweep) runs 10k problems sharded over every visible
-device; on a single chip it degenerates to a large-batch throughput
-measurement, on a pod it exercises the dp mesh end to end.
+Config 5 runs 10,240 problems sharded over every visible device.
 """
 
 from __future__ import annotations
@@ -29,7 +27,7 @@ def _measure(engine, run, goal, batch, n_iter, *, best_of=False,
     import jax.numpy as jnp
     import numpy as np
 
-    from or_cdchomp_tpu.parallel.batch import (
+    from or_cdchomp_jax.parallel.batch import (
         BatchSolver, best_of_batch, problem_batch_from_grid)
     from benchmarks.configs import START
 
@@ -74,41 +72,12 @@ def _measure(engine, run, goal, batch, n_iter, *, best_of=False,
     print(json.dumps(rec), flush=True)
 
 
-def _phase_report(engine, run, batch):
-    """Compile one batched step and print the per-phase cycle breakdown
-    (the reference's DEBUG_TIMING taxonomy, orcdchomp_mod.cpp:2835-2847,
-    attributed from named_scope metadata + TPU cycle estimates)."""
-    import jax
-    import numpy as np
-
-    from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
-    from or_cdchomp_tpu.utils.profiling import (
-        format_phase_report, phase_cycle_report)
-
-    spec = engine.spec
-    rng = np.random.default_rng(0)
-    start = np.asarray(run.problem.traj)[0]
-    goal = np.asarray(run.problem.traj)[-1]
-    starts = np.tile(start, (batch, 1)) + 0.02 * rng.normal(size=(batch, spec.n))
-    goals = np.tile(goal, (batch, 1)) + 0.02 * rng.normal(size=(batch, spec.n))
-    if spec.floating_base:
-        starts[:, 3:7] = start[3:7]
-        goals[:, 3:7] = goal[3:7]
-    probs = problem_batch_from_grid(run.problem, starts, goals, engine)
-    compiled = jax.jit(
-        lambda p: engine.iterate_batch(p, 1)).lower(probs).compile()
-    print(format_phase_report(phase_cycle_report(compiled.as_text())),
-        flush=True)
-
-
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--configs", default="1,2,3,4")
     ap.add_argument("--batch", type=int, default=256)
     ap.add_argument("--n-iter", type=int, default=100)
     ap.add_argument("--f64", action="store_true")
-    ap.add_argument("--phases", action="store_true",
-                    help="print per-phase cycle breakdown per config")
     args = ap.parse_args()
 
     import jax
@@ -123,30 +92,22 @@ def main():
         mod, run, goal = C.wam7_single_sdf(dtype)
         _measure(run.engine, run, goal, args.batch, args.n_iter,
                  label="1:wam7_single_sdf")
-        if args.phases:
-            _phase_report(run.engine, run, args.batch)
     if 2 in want:
         mod, run, goal = C.cluttered_multi_sdf(dtype)
         _measure(run.engine, run, goal, args.batch, args.n_iter,
                  label="2:cluttered_multi_sdf")
-        if args.phases:
-            _phase_report(run.engine, run, args.batch)
     if 3 in want:
         mod, run, goal = C.hmc_best_of(dtype)
         _measure(run.engine, run, goal, args.batch, args.n_iter,
                  best_of=True, label="3:hmc_best_of")
-        if args.phases:
-            _phase_report(run.engine, run, args.batch)
     if 4 in want:
         mod, run, goal = C.floating_everyn_tsr(dtype)
         _measure(run.engine, run, goal, args.batch, args.n_iter,
                  label="4:floating_everyn_tsr")
-        if args.phases:
-            _phase_report(run.engine, run, args.batch)
     if 5 in want:
         mod, run, goal = C.wam7_single_sdf(dtype)
         _measure(run.engine, run, goal, 10240, args.n_iter,
-                 label="5:pod_sweep_10k")
+                 label="5:batch_10k")
 
 
 if __name__ == "__main__":

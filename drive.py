@@ -1,10 +1,13 @@
-"""Canonical end-to-end verify drive (see .claude/skills/verify)."""
+"""Canonical end-to-end drive of the interactive path: python drive.py."""
 import time
 
 import numpy as np
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.utils.compile_cache import enable_compile_cache
+
+enable_compile_cache()
 
 t0 = time.time()
 mod = oc.CHOMPModule()
@@ -30,7 +33,6 @@ print(f"[{time.time()-t0:.1f}s] final cost {cost[0]:.3f} (expect ~26.5)",
       flush=True)
 t1 = time.time()
 mod.iterate(run=h, n_iter=100)
-print(f"warm iterate(100): {time.time()-t1:.2f}s (expect 0.2-0.5 on TPU)",
-      flush=True)
+print(f"warm iterate(100): {time.time()-t1:.2f}s", flush=True)
 mod.destroy(run=h)
 print("DRIVE OK", flush=True)

@@ -2,7 +2,7 @@
 device, keep the best feasible trajectory.
 
 The reference plans and validates one run at a time
-(orcdchomp_mod.cpp:2854-3011); this is the TPU-native production loop:
+(orcdchomp_mod.cpp:2854-3011); this is the batched production loop:
 
   1. solve B perturbed problems in one jitted batched scan
   2. retime + strictly collision-re-check ALL of them in one
@@ -28,9 +28,9 @@ def main():
 
     import jax
     import jax.numpy as jnp
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
-    from or_cdchomp_tpu.parallel.batch import (
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
+    from or_cdchomp_jax.parallel.batch import (
         BatchSolver, problem_batch_from_grid)
 
     mod = oc.CHOMPModule()
@@ -71,8 +71,7 @@ def main():
 
     ok = ~in_col
     print(f"solved {B} problems in {t_solve:.2f}s, validated in "
-          f"{t_check:.2f}s (both include one-time jit compile; warm "
-          "throughput numbers live in BENCHMARKS.md)")
+          f"{t_check:.2f}s (both include one-time jit compile)")
     print(f"feasible: {int(ok.sum())}/{B}")
     if ok.any():
         b = int(np.flatnonzero(ok)[np.argmin(final[ok])])

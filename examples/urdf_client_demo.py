@@ -1,6 +1,6 @@
 """Migration demo: URDF robot + orcdchomp sphere XML + string transport.
 
-Shows the full reference-style workflow against the TPU build:
+Shows the full reference-style workflow against this build:
 
  1. load a robot from URDF (replacing OpenRAVE robot XML / COLLADA),
  2. attach a sphere collision model from the reference's
@@ -57,11 +57,11 @@ SPHERES_XML = """
 
 
 def main():
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu import client
-    from or_cdchomp_tpu.api import KinBody, Robot
-    from or_cdchomp_tpu.models.kdata import parse_spheres_xml
-    from or_cdchomp_tpu.models.urdf import parse_urdf
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax import client
+    from or_cdchomp_jax.api import KinBody, Robot
+    from or_cdchomp_jax.models.kdata import parse_spheres_xml
+    from or_cdchomp_jax.models.urdf import parse_urdf
 
     model = parse_urdf(URDF, use_collision_spheres=False)
     model = model.with_spheres(parse_spheres_xml(SPHERES_XML))

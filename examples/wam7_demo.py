@@ -1,11 +1,11 @@
-"""End-to-end WAM7 demo — the scripts/test_wam7.py scenario, TPU-native.
+"""End-to-end WAM7 demo — the scripts/test_wam7.py scenario.
 
 The reference demo (scripts/test_wam7.py:17-93) loads a WAM with sphere
 annotations into an OpenRAVE env with a table and a mug, computes a
 cached distance field, runs 100 CHOMP iterations, and executes the
 collision-checked trajectory.  This script does the same against the
 analytic world model, then additionally solves a 64-problem batch in
-one jitted scan — the TPU-native superpower the reference lacks.
+one jitted scan — the batched capability the reference lacks.
 
 Run:  python examples/wam7_demo.py  [--batch 64] [--n-iter 100]
 """
@@ -26,9 +26,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
-    from or_cdchomp_tpu.parallel.batch import (
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
+    from or_cdchomp_jax.parallel.batch import (
         BatchSolver, best_of_batch, problem_batch_from_grid)
 
     print(f"devices: {jax.devices()}")

@@ -28,9 +28,9 @@ def main():
     args = ap.parse_args()
 
     import jax
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
-    from or_cdchomp_tpu.ops.voxelize import box_trimesh, cylinder_trimesh
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
+    from or_cdchomp_jax.ops.voxelize import box_trimesh, cylinder_trimesh
 
     print(f"devices: {jax.devices()}")
 

@@ -14,8 +14,8 @@ import numpy as np
 
 
 def build_world(jnp):
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
 
     mod = oc.CHOMPModule(dtype=jnp.float64)
     mod.add_kinbody(KinBody("table", oc.Scene.build(
@@ -33,7 +33,7 @@ def build_world(jnp):
 
 
 def global_batch(run, engine, goal, n):
-    from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
+    from or_cdchomp_jax.parallel.batch import problem_batch_from_grid
 
     rng = np.random.default_rng(0)
     start = np.asarray(run.problem.traj, dtype=np.float64)[0]
@@ -54,7 +54,7 @@ def main():
     jax.config.update("jax_num_cpu_devices", 2)
     jax.config.update("jax_enable_x64", True)
 
-    from or_cdchomp_tpu.parallel import multihost as mh
+    from or_cdchomp_jax.parallel import multihost as mh
     mh.initialize(coordinator_address=f"127.0.0.1:{port}",
                   num_processes=nprocs, process_id=rank)
 
@@ -62,7 +62,7 @@ def main():
     assert len(jax.devices()) == 2 * nprocs
 
     import jax.numpy as jnp
-    from or_cdchomp_tpu.parallel.batch import BatchSolver
+    from or_cdchomp_jax.parallel.batch import BatchSolver
 
     mod, run, goal = build_world(jnp)
     engine = run.engine

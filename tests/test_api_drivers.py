@@ -15,8 +15,8 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
 
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])
 

@@ -5,10 +5,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.chomp import metric as mm
-from or_cdchomp_tpu.parallel.batch import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.chomp import metric as mm
+from or_cdchomp_jax.parallel.batch import (
     BatchSolver, best_of_batch, problem_batch_from_grid, stack_problems)
 
 

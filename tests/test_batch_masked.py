@@ -17,9 +17,9 @@ import pytest
 
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.parallel.batch import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.parallel.batch import (
     BatchSolver, problem_batch_from_grid)
 
 Q_START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
@@ -130,7 +130,7 @@ def test_affine_batch_matches_per_problem_loop(setup):
     check(engine)   # dense D=1 (m=7 < SEP_MIN_M)
 
     # sep mode on the same spec
-    from or_cdchomp_tpu.chomp.solver import ChompEngine
+    from or_cdchomp_jax.chomp.solver import ChompEngine
     eng_sep = ChompEngine(engine.spec, run.robot.model, engine.fields,
                           dtype=jnp.float64, metric_mode="sep")
     check(eng_sep)

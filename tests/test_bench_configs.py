@@ -14,8 +14,8 @@ import pytest
 import jax.numpy as jnp
 
 from benchmarks import configs as C
-from or_cdchomp_tpu.ops.voxelize import scene_distance
-from or_cdchomp_tpu.utils import np_pose
+from or_cdchomp_jax.ops.voxelize import scene_distance
+from or_cdchomp_jax.utils import np_pose
 
 MARGIN = 0.01  # meters of required clearance at the fixed endpoints
 
@@ -125,7 +125,7 @@ def test_config4_endpoints_feasible(config4):
 
 
 def test_config4_solve_collision_free(config4):
-    from or_cdchomp_tpu.tsr import TSR
+    from or_cdchomp_jax.tsr import TSR
     mod, run, goal = config4
     tsr = TSR.from_matrices(
         np.eye(4), np.eye(4),

@@ -9,10 +9,10 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.checkpoint import load_problem, save_problem
-from or_cdchomp_tpu.transport import send_command
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.checkpoint import load_problem, save_problem
+from or_cdchomp_jax.transport import send_command
 
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])
 
@@ -54,7 +54,7 @@ def test_checkpoint_resume_bitexact(world, tmp_path):
 
 
 def test_checkpoint_batched(world, tmp_path):
-    from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
+    from or_cdchomp_jax.parallel.batch import problem_batch_from_grid
 
     mod = world
     h = mod.create(robot="wam", adofgoal=GOAL, lambda_=100.0, n_points=9)

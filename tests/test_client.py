@@ -9,9 +9,9 @@ import json
 
 import numpy as np
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu import client
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax import client
+from or_cdchomp_jax.api import KinBody, Robot
 
 
 def _module():

@@ -6,12 +6,12 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.chomp.constraints import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.chomp.constraints import (
     TSRConstraintSet, eval_tsr_all, tsr_enabled_from_bw)
-from or_cdchomp_tpu.chomp.cost import trajectory_kinematics
-from or_cdchomp_tpu.tsr import TSR
+from or_cdchomp_jax.chomp.cost import trajectory_kinematics
+from or_cdchomp_jax.tsr import TSR
 
 
 def test_tsr_parse_serialize_roundtrip():
@@ -127,8 +127,8 @@ def test_sss_solve_matches_dense():
     """The O(C) quasiseparable scan solve equals the dense
     (Ainv ∘ JJᵀ)⁻¹ solve for the D=1 metric (it is the same Cholesky,
     factored through the semiseparable generators)."""
-    from or_cdchomp_tpu.chomp import metric as metric_mod
-    from or_cdchomp_tpu.chomp.constraints import _sss_solve
+    from or_cdchomp_jax.chomp import metric as metric_mod
+    from or_cdchomp_jax.chomp.constraints import _sss_solve
 
     rng = np.random.default_rng(3)
     m, dt, n, k = 23, 1.0 / 24, 9, 3
@@ -152,8 +152,8 @@ def test_sss_solve_nonuniform_points():
     """Non-contiguous (but sorted) point subsets keep the
     semiseparable factorization exact (min/max generators only need
     ordering, not contiguity)."""
-    from or_cdchomp_tpu.chomp import metric as metric_mod
-    from or_cdchomp_tpu.chomp.constraints import _sss_solve
+    from or_cdchomp_jax.chomp import metric as metric_mod
+    from or_cdchomp_jax.chomp.constraints import _sss_solve
 
     rng = np.random.default_rng(5)
     m, dt, n, k = 40, 1.0 / 41, 14, 2

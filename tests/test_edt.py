@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from or_cdchomp_tpu.ops.edt import edt_sq, signed_edt
-from or_cdchomp_tpu.ops.flood import exterior_free_mask, flood_reachable
+from or_cdchomp_jax.ops.edt import edt_sq, signed_edt
+from or_cdchomp_jax.ops.flood import exterior_free_mask, flood_reachable
 from tests.ref import oracle as orc
 
 RNG = np.random.default_rng(3)

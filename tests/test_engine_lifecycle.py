@@ -1,7 +1,7 @@
 """Engine-cache lifecycle: eviction, LRU bound, and actual HBM release.
 
 The reference frees SDF grids and run state eagerly (removefield
-orcdchomp_mod.cpp:799-847, run_destroy 3039-3066).  The TPU build's
+orcdchomp_mod.cpp:799-847, run_destroy 3039-3066).  This build's
 equivalent obligations: (1) editing the field registry must not strand
 engines built against the old registry (each pins a full FieldStack in
 device memory), (2) per-hook/per-spec cache entries must stay bounded,
@@ -18,8 +18,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])

@@ -7,8 +7,8 @@ rank-0 transcendentals are f32-sloppy while rank-1+ are exact.
 import numpy as np
 import jax.numpy as jnp
 
-from or_cdchomp_tpu.models.robot import CompiledFK
-from or_cdchomp_tpu.models.wam7 import wam7
+from or_cdchomp_jax.models.robot import CompiledFK
+from or_cdchomp_jax.models.wam7 import wam7
 from tests.ref import oracle as orc
 
 RNG = np.random.default_rng(5)

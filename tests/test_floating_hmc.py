@@ -5,8 +5,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
 
 
 @pytest.fixture(scope="module")

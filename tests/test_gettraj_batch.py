@@ -9,9 +9,9 @@ import pytest
 import jax
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.parallel.batch import BatchSolver, problem_batch_from_grid
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.parallel.batch import BatchSolver, problem_batch_from_grid
 
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])

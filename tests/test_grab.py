@@ -4,9 +4,9 @@ body stops being a world obstacle (orcdchomp_mod.cpp:2200-2208)."""
 import numpy as np
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.models.robot import CompiledFK
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.models.robot import CompiledFK
 
 
 def _setup():

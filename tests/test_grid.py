@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from or_cdchomp_tpu.ops.grid import (
+from or_cdchomp_jax.ops.grid import (
     Grid3D, grid_interp_grad, multigrid_interp_grad, pad_stack_grids)
 from tests.ref import oracle as orc
 

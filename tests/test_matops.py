@@ -3,7 +3,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from or_cdchomp_tpu.ops import matops
+from or_cdchomp_jax.ops import matops
 
 
 def test_cross_accumulates():

@@ -2,7 +2,7 @@
 
 import numpy as np
 
-from or_cdchomp_tpu.chomp import metric as mm
+from or_cdchomp_jax.chomp import metric as mm
 from tests.ref import oracle as orc
 
 RNG = np.random.default_rng(4)

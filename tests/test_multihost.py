@@ -4,10 +4,10 @@ import numpy as np
 import jax
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.parallel import multihost as mh
-from or_cdchomp_tpu.parallel.batch import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.parallel import multihost as mh
+from or_cdchomp_jax.parallel.batch import (
     BatchSolver, problem_batch_from_grid)
 
 

@@ -81,7 +81,7 @@ def test_two_process_distributed_matches_single_process():
     # single-process reference: same world, same batch, no distribution
     import jax
     import jax.numpy as jnp
-    from or_cdchomp_tpu.parallel.batch import BatchSolver, best_of_batch
+    from or_cdchomp_jax.parallel.batch import BatchSolver, best_of_batch
     from tests import multiproc_child as mc
 
     mod, run, goal = mc.build_world(jnp)

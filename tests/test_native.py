@@ -9,12 +9,12 @@ import numpy as np
 
 import jax.numpy as jnp
 
-from or_cdchomp_tpu import native
-from or_cdchomp_tpu.ops.flood import exterior_free_mask
-from or_cdchomp_tpu.ops.grid import Grid3D
-from or_cdchomp_tpu.ops.quat import pose_apply, pose_invert
-from or_cdchomp_tpu.ops.voxelize import Scene, voxelize_scene
-from or_cdchomp_tpu.utils import np_pose
+from or_cdchomp_jax import native
+from or_cdchomp_jax.ops.flood import exterior_free_mask
+from or_cdchomp_jax.ops.grid import Grid3D
+from or_cdchomp_jax.ops.quat import pose_apply, pose_invert
+from or_cdchomp_jax.ops.voxelize import Scene, voxelize_scene
+from or_cdchomp_jax.utils import np_pose
 
 
 def _world():
@@ -68,7 +68,7 @@ def test_flood_exterior_native_matches_jax():
 
 
 def test_build_sdf_native_matches_device_pipeline():
-    from or_cdchomp_tpu.ops.edt import signed_edt
+    from or_cdchomp_jax.ops.edt import signed_edt
 
     scenes, poses, pose_world_gsdf, sizes, lengths = _world()
     e = 0.035

@@ -16,10 +16,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.tsr import TSR
-from or_cdchomp_tpu.utils import np_pose
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.tsr import TSR
+from or_cdchomp_jax.utils import np_pose
 from tests.ref.oracle import OracleChomp
 
 Q_START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])

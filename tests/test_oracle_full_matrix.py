@@ -14,11 +14,11 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.chomp.problem import HmcState
-from or_cdchomp_tpu.tsr import TSR
-from or_cdchomp_tpu.utils import np_pose
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.chomp.problem import HmcState
+from or_cdchomp_jax.tsr import TSR
+from or_cdchomp_jax.utils import np_pose
 from tests.ref.oracle import OracleChomp
 
 Q_START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
@@ -263,7 +263,7 @@ def test_start_tsr_end_to_end():
     mod, r = _world()
     # TSR at the start EE pose, constraining only z (so the start point
     # can still move in the other dims)
-    from or_cdchomp_tpu.models.robot import CompiledFK
+    from or_cdchomp_jax.models.robot import CompiledFK
     fk = CompiledFK(r.model, dtype=jnp.float64)
     lp, _ = fk.link_poses(jnp.asarray(Q_START, jnp.float64),
                           base_pose=jnp.asarray(r.pose, jnp.float64))

@@ -13,8 +13,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from or_cdchomp_tpu.models.orxml import parse_robot_xml
-from or_cdchomp_tpu.models.robot import CompiledFK
+from or_cdchomp_jax.models.orxml import parse_robot_xml
+from or_cdchomp_jax.models.robot import CompiledFK
 
 MINI = """<?xml version="1.0"?>
 <Robot name="mini">
@@ -246,8 +246,8 @@ def test_file_include_resolves(tmp_path):
 
 def test_end_to_end_solve_from_xml():
     """An XML-loaded robot drives the full module pipeline."""
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
 
     model = parse_robot_xml(MINI)
     mod = oc.CHOMPModule(dtype=jnp.float64)

@@ -1,41 +1,20 @@
 """Phase-taxonomy profiling (the reference's DEBUG_TIMING breakdown,
-chomp.h:95-100 / orcdchomp_mod.cpp:2835-2847, reconstructed from
-named_scope metadata + TPU compiler cycle estimates)."""
+chomp.h:95-100 / orcdchomp_mod.cpp:2835-2847, carried as named_scope
+metadata into the compiled step and its profiler traces)."""
 
 import jax
 import numpy as np
 
-from or_cdchomp_tpu.utils.profiling import (
-    PhaseTimers, format_phase_report, phase, phase_cycle_report)
-
-_FAKE_HLO = '''
-  %f1 = f32[8]{0} fusion(%a), metadata={op_name="jit(step)/callbacks/callback_pre/fk/mul"}, backend_config={"window_config":{"estimated_cycles":"1000"}}
-  %f2 = f32[8]{0} fusion(%b), metadata={op_name="jit(step)/callbacks/selfcol/add"}, backend_config={"window_config":{"estimated_cycles":"2000"}}
-  %f3 = f32[8]{0} fusion(%c), metadata={op_name="jit(step)/smoothgrad/dot"}, backend_config={"window_config":{"estimated_cycles":"300"}}
-  %f4 = f32[8]{0} fusion(%d), metadata={op_name="jit(step)/unrelated/mul"}, backend_config={"window_config":{"estimated_cycles":"50"}}
-'''
-
-
-def test_phase_cycle_report_attribution():
-    rep = phase_cycle_report(_FAKE_HLO)
-    # nested scopes attribute to the deepest phase
-    assert rep["fk"] == 1000
-    assert rep["selfcol"] == 2000
-    assert rep["smoothgrad"] == 300
-    assert rep["other"] == 50
-    out = format_phase_report(rep)
-    assert "ticks_fk" in out and "ticks_selfcol" in out
-    assert "(59.7%)" in out or "59.7" in out
+from or_cdchomp_jax.utils.profiling import PhaseTimers, phase
 
 
 def test_step_carries_named_scopes():
-    """The compiled step's HLO carries the phase scopes in op metadata
-    (this is what attributes the TPU cycle report; on CPU there are no
-    cycle estimates, but the scope names must be present)."""
+    """The compiled step's HLO carries the phase scopes in op metadata,
+    which is what attributes device time in a profiler trace."""
     import jax.numpy as jnp
 
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
 
     mod = oc.CHOMPModule(dtype=jnp.float64)
     mod.add_kinbody(KinBody("table", oc.Scene.build(

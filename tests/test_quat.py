@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from or_cdchomp_tpu.ops import quat as qt
+from or_cdchomp_jax.ops import quat as qt
 from tests.ref import oracle as orc
 
 RNG = np.random.default_rng(0)

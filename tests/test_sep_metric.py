@@ -13,10 +13,10 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.chomp import metric as mm
-from or_cdchomp_tpu.chomp.solver import ChompEngine
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.chomp import metric as mm
+from or_cdchomp_jax.chomp.solver import ChompEngine
 
 RNG = np.random.default_rng(3)
 

@@ -1,4 +1,4 @@
-"""Sharded-solve communication contract (the round-5 pod model).
+"""Sharded-solve communication contract.
 
 Independent problems sharded over a dp mesh must exchange (almost)
 nothing per iteration: the ONLY permitted per-step collective is the
@@ -6,11 +6,10 @@ joint-limit repair loop's global `reduce_or` condition (the
 reference's "repeat while any violation" semantics, chomp.c:608-655,
 made SPMD — a 1-byte pred all-reduce).
 
-Round 5 found the lookup path silently all-gathering its index tensors
-and running the dominant one-hot dots fully REPLICATED on every device
-(the flat query reshape merged the sharded minor batch axis).  This
-test compiles the real sharded solve and fails if any data-bearing
-collective ever reappears.
+A flat query reshape that merges the sharded minor batch axis makes
+the lookup all-gather its index tensors and run REPLICATED on every
+device.  This test compiles the real sharded solve and fails if any
+data-bearing collective ever appears.
 """
 
 import re
@@ -21,9 +20,9 @@ import jax.numpy as jnp
 import pytest
 from jax.sharding import Mesh
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.parallel.batch import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.parallel.batch import (
     BatchSolver, problem_batch_from_grid)
 
 COLLECTIVE = re.compile(
@@ -80,12 +79,12 @@ def test_sharded_iterate_has_no_data_collectives():
     data_bearing = [(k, b) for k, b in colls if b > 16]
     assert not data_bearing, (
         "per-iteration data collectives crept back into the sharded "
-        f"solve: {data_bearing} (round-5 regression: flat query "
-        "reshapes replicate the lookup — keep queries (m·S, B))")
+        f"solve: {data_bearing} (flat query reshapes replicate the "
+        "lookup — keep queries (m·S, B))")
     # scalar latency-bound conditions (limit-repair reduce_or) are fine
     assert len(colls) <= 2, colls
 
-    # and the dominant MXU work must actually be sharded: no dot may
+    # and the dominant matrix work must actually be sharded: no dot may
     # see the full 16-problem query count (16/8 = 2 per device)
     full_q = 10 * 15 * B     # m * S * B
     for m_ in re.finditer(r"= \S*?f32\[(\d+),(\d+)\][^ ]* (dot|"

@@ -11,9 +11,9 @@ import numpy as np
 import jax
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.parallel.batch import problem_batch_from_grid
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])
@@ -146,7 +146,7 @@ def test_soa_matches_vmap_floating():
 def test_soa_matches_vmap_floating_everyn_tsr():
     """The config-4 shape: floating base + everyn TSR — constraint
     eval/projection run vmapped-AoS inside the batch-native step."""
-    from or_cdchomp_tpu.tsr import TSR
+    from or_cdchomp_jax.tsr import TSR
     mod = _module()
     tsr = TSR.from_matrices(
         np.eye(4), np.eye(4),
@@ -162,7 +162,7 @@ def test_soa_matches_vmap_floating_everyn_tsr():
 
 def test_soa_matches_vmap_fixed_con_tsr():
     """Fixed base + a single-point con_tsr."""
-    from or_cdchomp_tpu.tsr import TSR
+    from or_cdchomp_jax.tsr import TSR
     mod = _module()
     tsr = TSR.from_matrices(
         np.eye(4), np.eye(4),
@@ -177,7 +177,7 @@ def test_soa_matches_vmap_fixed_con_tsr():
 def test_start_tsr_not_eligible():
     """start_tsr shifts the moving-point window; it keeps the vmapped
     AoS path."""
-    from or_cdchomp_tpu.tsr import TSR
+    from or_cdchomp_jax.tsr import TSR
     mod = _module()
     tsr = TSR.from_matrices(
         np.eye(4), np.eye(4),

@@ -10,8 +10,8 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
 from tests.ref.oracle import OracleChomp
 
 
@@ -36,7 +36,7 @@ Q_GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])
 def _oracle_from_run(mod, rn):
     sdf = mod.sdfs[0]
     body = mod.bodies["table"]
-    from or_cdchomp_tpu.utils import np_pose
+    from or_cdchomp_jax.utils import np_pose
     pose_world_gsdf = np_pose.compose(body.pose, sdf.pose)
     return OracleChomp(
         model=rn.robot.model,

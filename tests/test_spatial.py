@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from or_cdchomp_tpu.ops import quat as qt
-from or_cdchomp_tpu.ops import spatial as sp
+from or_cdchomp_jax.ops import quat as qt
+from or_cdchomp_jax.ops import spatial as sp
 
 RNG = np.random.default_rng(1)
 

@@ -5,10 +5,10 @@ import json
 import numpy as np
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.models.kdata import parse_spheres_xml, with_spheres
-from or_cdchomp_tpu.utils.shparse import shparse, shquot
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.models.kdata import parse_spheres_xml, with_spheres
+from or_cdchomp_jax.utils.shparse import shparse, shquot
 
 
 def test_shparse_basic():

@@ -2,7 +2,7 @@
 
 The reference's flagship demo scene is trimeshes (rolly-table.iv +
 mug3.iv, test_wam7.py:22-28) voxelized by probe-cube collision checks
-(orcdchomp_mod.cpp:495-525).  These tests pin the TPU build's mesh
+(orcdchomp_mod.cpp:495-525).  These tests pin this build's mesh
 path against the analytic primitives: a meshed box must voxelize and
 SDF like the analytic box, the signed point distance must be correct
 inside and out, and the native (C++) voxelizer must agree with the
@@ -13,9 +13,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.ops.voxelize import (
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.ops.voxelize import (
     Scene, box_trimesh, cylinder_trimesh, sd_trimesh, voxelize_scene,
     _tri_cube_overlap)
 
@@ -81,7 +81,7 @@ def test_sd_trimesh_cylinder_sign():
 
 
 def test_native_tri_voxelize_matches_ingraph():
-    from or_cdchomp_tpu import native
+    from or_cdchomp_jax import native
     if not native.available():
         pytest.skip("native library unavailable")
     v, f = box_trimesh(HALF)
@@ -109,8 +109,8 @@ def test_grab_mesh_body_bounding_sphere():
     """Grabbing a mesh-scene body attaches its bounding sphere as a
     robot collision sphere (orcdchomp_mod.cpp:2200-2208 semantics —
     grabbed geometry rides the grabbing link)."""
-    import or_cdchomp_tpu as oc
-    from or_cdchomp_tpu.api import KinBody, Robot
+    import or_cdchomp_jax as oc
+    from or_cdchomp_jax.api import KinBody, Robot
 
     mv, mf = cylinder_trimesh(0.04, 0.06, n=12)
     mug = KinBody("mug", oc.Scene.build(
@@ -157,8 +157,8 @@ def test_mesh_scene_end_to_end_demo_shape():
     # interior of the meshed tabletop reads negative in the SDF (the
     # flood fill closed the watertight shell into solid obstacle)
     sdf = mod.sdfs[0]
-    from or_cdchomp_tpu.ops.grid import grid_interp
-    from or_cdchomp_tpu.utils import np_pose
+    from or_cdchomp_jax.ops.grid import grid_interp
+    from or_cdchomp_jax.utils import np_pose
     inv = np_pose.invert(np.asarray(sdf.pose, np.float64))
     p_local = np_pose.apply(inv, np.array([0.75, 0.0, 0.5]))
     val = grid_interp(sdf.grid.data, sdf.grid.lengths,

@@ -2,7 +2,7 @@
 
 eval_tsr_all_soa computes the same constraint values/Jacobians as
 eval_tsr_all (orcdchomp_mod.cpp:1330-1657 chains) component-wise with
-the batch on lanes; outputs must agree to f64 round-off for fixed-base
+the batch minor; outputs must agree to f64 round-off for fixed-base
 and floating-base problems, con/everyn layouts, and heterogeneous
 enabled masks (the projection consumes only enabled rows, but the full
 (6, n) Jacobian must match).
@@ -13,13 +13,13 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.api import KinBody, Robot
-from or_cdchomp_tpu.chomp.constraints import eval_tsr_all, eval_tsr_all_soa
-from or_cdchomp_tpu.chomp.cost import TrajKinematics
-from or_cdchomp_tpu.chomp import cost_soa
-from or_cdchomp_tpu.parallel.batch import problem_batch_from_grid
-from or_cdchomp_tpu.tsr import TSR
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.api import KinBody, Robot
+from or_cdchomp_jax.chomp.constraints import eval_tsr_all, eval_tsr_all_soa
+from or_cdchomp_jax.chomp.cost import TrajKinematics
+from or_cdchomp_jax.chomp import cost_soa
+from or_cdchomp_jax.parallel.batch import problem_batch_from_grid
+from or_cdchomp_jax.tsr import TSR
 
 START = np.array([2.5, -1.8, 0.0, 2.0, 0.0, 0.2, 0.0])
 GOAL = np.array([0.6, 0.7, 0.1, 1.4, 0.0, -0.3, 0.0])

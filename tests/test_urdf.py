@@ -4,9 +4,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.models.robot import CompiledFK, RobotModel
-from or_cdchomp_tpu.models.urdf import parse_urdf, _quat_from_rpy
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.models.robot import CompiledFK, RobotModel
+from or_cdchomp_jax.models.urdf import parse_urdf, _quat_from_rpy
 
 URDF_2R = """
 <robot name="rr">
@@ -76,7 +76,7 @@ def test_rpy_quaternion():
         _quat_from_rpy(np.array([0, 0, 0.6])),
         [0, 0, np.sin(0.3), np.cos(0.3)], atol=1e-12)
     # composed rotation matches Rz·Ry·Rx
-    from or_cdchomp_tpu.tsr import quat_to_R_np
+    from or_cdchomp_jax.tsr import quat_to_R_np
     rpy = np.array([0.3, -0.5, 0.9])
     def rot(axis, a):
         c, s = np.cos(a), np.sin(a)

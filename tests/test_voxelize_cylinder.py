@@ -13,9 +13,9 @@ import pytest
 
 import jax.numpy as jnp
 
-import or_cdchomp_tpu as oc
-from or_cdchomp_tpu.ops.voxelize import _cyl_cube_overlap, voxelize_scene
-from or_cdchomp_tpu.utils import np_pose
+import or_cdchomp_jax as oc
+from or_cdchomp_jax.ops.voxelize import _cyl_cube_overlap, voxelize_scene
+from or_cdchomp_jax.utils import np_pose
 
 
 def _quat_R(q):
@@ -88,7 +88,7 @@ def test_cyl_voxelization_tighter_than_conservative():
     occ = np.asarray(voxelize_scene(scene, centers, e))
 
     # conservative count (old rule): sd <= e*sqrt(3)
-    from or_cdchomp_tpu.ops.voxelize import sd_cylinder
+    from or_cdchomp_jax.ops.voxelize import sd_cylinder
     sd = np.asarray(sd_cylinder(centers, 0.1, 0.15))
     cons = sd <= e * np.sqrt(3.0)
     exact_lo = sd <= e                      # inscribed-sphere accept
@@ -100,7 +100,7 @@ def test_cyl_voxelization_tighter_than_conservative():
 def test_native_voxelizer_matches_jax():
     """The native C++ pipeline must classify cylinder cells identically
     (same exact-shell algorithm)."""
-    from or_cdchomp_tpu import native
+    from or_cdchomp_jax import native
 
     if not native.available():
         pytest.skip("native library unavailable")
@@ -115,7 +115,7 @@ def test_native_voxelizer_matches_jax():
         [scene], [np_pose.POSE_ID], np_pose.POSE_ID, sizes, lengths, e)
 
     # JAX equivalent on the same cell centers
-    from or_cdchomp_tpu.ops.grid import Grid3D
+    from or_cdchomp_jax.ops.grid import Grid3D
     g = Grid3D.create(sizes, lengths)
     centers = g.all_centers()
     occ_jax = np.asarray(voxelize_scene(scene, centers, float(e)))
